@@ -89,7 +89,7 @@ class EasyAlignment:
 
 
 class AlignmentEngine:
-    """TPU-native replacement for the C alignment engine + Go shim."""
+    """Python replacement for the C alignment engine + Go shim."""
 
     def __init__(self, fm: FMIndex, opt: Optional[AlignerConfig] = None,
                  pair: Optional[PairModel] = None):

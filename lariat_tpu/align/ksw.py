@@ -1,8 +1,8 @@
 """Smith-Waterman DP primitives with BWA-MEM-exact semantics (host reference).
 
 Numpy row-vectorized implementations of the three DP routines the alignment
-engine needs; the Pallas TPU kernels in ``lariat_tpu/ops`` are tested for
-equality against these.
+engine needs; the batched device versions in ``lariat_tpu/ops`` are tested
+for equality against these.
 
 Reference call sites (what the Go shim drives in the native engine):
  - seed extension inside mem_align1_core  -> ``extend``       (gobwa.go:181-187)
@@ -32,7 +32,7 @@ MINUS_INF = -0x40000000
 
 # ---------------------------------------------------------------------------
 # Native dispatch: native/ksw.cpp implements the same three routines in C++
-# (5-10x faster for the worker processes). The numpy versions below remain
+# (faster for the worker processes). The numpy versions below remain
 # the executable reference; set LARIAT_NO_NATIVE_KSW=1 to force them.
 # ---------------------------------------------------------------------------
 
@@ -468,29 +468,40 @@ def local_align_batch_native(tasks, mat: np.ndarray, o_del: int, e_del: int,
 
 
 def _pad_tier(n: int, tiers) -> int:
-    """Smallest tier >= n (falls back to 64-multiple past the ladder): each
-    distinct device shape is a fresh (remote, minutes-long) Mosaic compile."""
+    """Smallest tier >= n (falls back to a 64-multiple past the ladder)."""
     for t in tiers or ():
         if n <= t:
             return t
     return -(-n // 64) * 64
 
 
+def local_wave_shape(tasks, q_tiers=None, t_tiers=None):
+    """(Bp, Lq, Lt) of the device wave ``local_align_batch`` runs for
+    ``tasks``; None when no task has both a query and a target."""
+    wave = [(q, t) for q, t in tasks if len(q) and len(t)]
+    if not wave:
+        return None
+    Bp = 128
+    while Bp < len(wave):
+        Bp <<= 1
+    return (Bp, _pad_tier(max(len(q) for q, _ in wave), q_tiers),
+            _pad_tier(max(len(t) for _, t in wave), t_tiers))
+
+
 def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
                       mat: np.ndarray, o_del: int, e_del: int,
                       o_ins: int, e_ins: int, minsc: int,
-                      backend: str = "xla",
                       q_tiers=None, t_tiers=None,
-                      interpret: bool = False,
                       shard_fn=None) -> List[LocalResult]:
     """Device-batched ksw_align2 for many (query, target) tasks.
 
     ONE device dispatch and ONE result download for the whole batch: the
     forward local SW and the reversed-prefix start-coordinate pass both run
-    inside a single jit (ops/sw_local_pallas.local_two_pass_pallas or the
-    XLA twin) — round trips dominate on remote-tunnel TPU deployments.
-    Bit-identical per task to ``local_align`` (mem_matesw's DP,
-    gobwa.go:287-324); tests/test_sw_local.py asserts it.
+    inside a single jit (ops/sw_local_batch.local_two_pass). Lengths pad
+    to the given tiers (64-multiples by default) and the batch to a power
+    of two, so few distinct shapes compile. Bit-identical per task to
+    ``local_align`` (mem_matesw's DP, gobwa.go:287-324);
+    tests/test_sw_local.py asserts it.
     """
     B = len(tasks)
     if B == 0:
@@ -504,17 +515,9 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
     if not fwd_idx:
         return results
     wave = [tasks[i] for i in fwd_idx]
-    Lq = _pad_tier(max(len(q) for q, _ in wave), q_tiers)
-    Lt = _pad_tier(max(len(t) for _, t in wave), t_tiers)
+    Bp, Lq, Lt = local_wave_shape(wave, q_tiers, t_tiers)
     n = len(wave)
-    # pad the batch dim to power-of-two buckets: each distinct shape is
-    # a fresh (minutes-long, remote) Mosaic compile, and task counts
-    # vary per call
-    Bp = 128
-    while Bp < n:
-        Bp <<= 1
-    # uint8 buffers (codes 0..4): the device entry points cast to int32
-    # on-chip, and the 4x smaller upload matters over a remote TPU link
+    # uint8 buffers (codes 0..4): the device entry point casts to int32
     qa = np.zeros((Bp, Lq), np.uint8)
     ta = np.zeros((Bp, Lt), np.uint8)
     qlen = np.zeros(Bp, np.int32)
@@ -530,22 +533,10 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
     if shard_fn is not None:   # mesh-shard the wave over the batch dim
         (qa, qlen, ta, tlen, minscs), inv = shard_fn(qa, qlen, ta, tlen,
                                                      minscs)
-    if backend == "pallas":
-        from ..ops.sw_local_pallas import local_two_pass_pallas
-        params = _mat_params(np.asarray(mat))
-        if params is None:
-            raise ValueError("pallas local kernel needs a uniform matrix")
-        out = local_two_pass_pallas(
-            qa, qlen, ta, tlen, minscs,
-            o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
-            match_sc=params[0], mismatch_sc=params[1], n_sc=params[2],
-            interpret=interpret)
-    else:
-        from ..ops.sw_local_batch import local_two_pass
-        out = local_two_pass(qa, qlen, ta, tlen,
-                             np.asarray(mat, np.int64), minscs,
-                             o_del=o_del, e_del=e_del, o_ins=o_ins,
-                             e_ins=e_ins, max_sc=int(np.asarray(mat).max()))
+    from ..ops.sw_local_batch import local_two_pass
+    out = local_two_pass(qa, qlen, ta, tlen, np.asarray(mat, np.int64),
+                         minscs, o_del=o_del, e_del=e_del, o_ins=o_ins,
+                         e_ins=e_ins, max_sc=int(np.asarray(mat).max()))
     rows = np.asarray(out)        # single transfer: (8, Bp)
     if inv is not None:
         rows = rows[:, inv]       # undo the shard round-robin

@@ -1,4 +1,4 @@
-"""Configuration and score constants for the TPU-native linked-read aligner.
+"""Configuration and score constants for the linked-read aligner.
 
 Score/threshold parity with the reference (10XGenomics/lariat + BWA-MEM) is what
 defines SAM equivalence, so every constant is catalogued here with its origin:

@@ -109,7 +109,7 @@ class FMIndex:
         self.name_to_tid = {c.name: i for i, c in enumerate(contigs)}
         # occ checkpoints every OCC_INTERVAL bases over the physical BWT
         # (a full pass over bwt_codes — persisted in the npz so loading an
-        # hg38-scale index skips ~30 s of recount)
+        # hg38-scale index skips the recount)
         if occ_ckpt is None:
             occ_ckpt = _blocked_counts(self.bwt_codes, OCC_INTERVAL)
         self.occ_ckpt = occ_ckpt  # int64[(nblocks+1), 4]: counts before block
@@ -222,7 +222,7 @@ class FMIndex:
         of being skipped (per-window unpack) in every worker.
 
         Disk-cached as ``codes.npy`` in the .lariat.d dir (atomic rename):
-        the unpack is a ~31 s single-thread pass at hg38 scale, paid once
+        the unpack is a long single-thread pass at hg38 scale, paid once
         per index instead of once per run."""
         if getattr(self, "_codes_cache", None) is not None:
             return
@@ -254,10 +254,9 @@ class FMIndex:
         At hg38 scale these are ~4.6 GB of 4 KB-paged, file-backed mmap;
         every FM operation (occ rank, LF step) is a random access, so the
         dTLB misses dominate and even software prefetch is dropped on them.
-        2 MB huge pages cut the walk from ~9 us to ~4 us per SA occurrence
-        (measured, 3.09 Gbp / sa_intv=32). The CLI calls this BEFORE forking
-        workers so the one hot copy is shared copy-on-write — the per-worker
-        page-fault warmup disappears too."""
+        2 MB huge pages shorten the walk per SA occurrence. The CLI calls
+        this BEFORE forking workers so the one hot copy is shared
+        copy-on-write — the per-worker page-fault warmup disappears too."""
         import mmap as _mmap
 
         if getattr(self, "_hot_bufs", None):
@@ -295,8 +294,7 @@ class FMIndex:
             bufs.append(buf)
         if copies:
             # np.copyto releases the GIL: fan the ~8 GB of hugepage fills
-            # over a few threads (the copies were ~28 s sequential at hg38
-            # scale — fault + write bound, scales with cores)
+            # over a few threads (fault + write bound, scales with cores)
             from concurrent.futures import ThreadPoolExecutor
 
             def _fill(item):

@@ -105,7 +105,7 @@ class DeviceFMIndex(NamedTuple):
     @classmethod
     def from_host(cls, fm: FMIndex) -> "DeviceFMIndex":
         # genome coordinates fit int32 for anything below ~1 Gbp doubled;
-        # int64 (XLA-emulated on TPU) only when required
+        # int64 only when required
         idx_dtype = np.int32 if fm.seq_len + 2 < 2**31 else np.int64
         # every device rank/code query rides the fused row now; the
         # separate planes would duplicate ~2.3 GB of HBM at hg38 scale

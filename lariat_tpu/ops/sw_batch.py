@@ -1,4 +1,4 @@
-"""Batched Smith-Waterman extension on device (JAX/XLA, TPU-first layout).
+"""Batched Smith-Waterman extension on device (JAX/XLA).
 
 Computes ksw_extend2 (see ``lariat_tpu/align/ksw.py``) for a whole batch of
 (query, target) tasks at once: the DP is sequential over target rows only;
@@ -6,8 +6,7 @@ within a row every query position is independent (gap opens come from the
 diagonal M term in BWA's recurrence), so each row is elementwise VPU work of
 shape (batch, Lq) plus one prefix-max scan along the query axis for F.
 
-Layout: batch on the minor (lane) axis would be ideal for TPU tiling, but XLA
-handles the (B, Lq) layout fine; the Pallas kernel variant can re-tile.
+Layout: (B, Lq) row planes, batch-major.
 
 Exact-parity notes vs the scalar reference implementation:
  - early 'break' rows become masked no-ops (an ``alive`` flag per task);
@@ -24,7 +23,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-NEG = jnp.int32(-0x40000000)
+NEG = -0x40000000
 
 
 class ExtendBatchResult(NamedTuple):

@@ -1,21 +1,29 @@
-"""Batched banded global alignment (ksw_global2) on device.
+"""Batched banded global alignment (ksw_global2) on device, with traceback.
 
-Scores and traceback matrices computed on device; the CIGAR walk itself is a
-cheap host loop over the downloaded direction bytes (one byte per in-band
-cell). Same vectorization structure as sw_batch: rows sequential, columns
-elementwise + one prefix-max scan for F (gap opens come from the diagonal M).
+``global_batch`` computes scores and band-packed direction bytes (one byte
+per in-band cell) for a whole wave. Same vectorization structure as
+sw_batch: rows sequential, columns elementwise + one prefix-max scan for F
+(gap opens come from the diagonal M).
+
+The CIGAR walk runs on the device too (``traceback_ops_device``): only the
+per-step op stream and the final cursors come back, bit-packed into one
+buffer per wave (``traceback_ops_fused``), and the native RLE finisher
+(``cigars_from_ops_packed``) turns them into CIGARs. ``traceback`` is the
+per-task host walk over downloaded bytes that the tests hold the device
+walk to; on an H100 the device walk beat downloading z and walking it in
+C++ at the 151 bp reg2aln wave shape (PERF.md).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-NEG = jnp.int32(-0x40000000)
+NEG = -0x40000000
 
 
 class GlobalBatchResult(NamedTuple):
@@ -134,44 +142,169 @@ def global_batch(query: jnp.ndarray, qlen: jnp.ndarray,
     return GlobalBatchResult(score=score, z=final.z, beg=final.begs)
 
 
-def traceback_batch(zs: np.ndarray, begs: np.ndarray, qlens, tlens, ws
-                    ) -> List[List[Tuple[int, int]]]:
-    """CIGAR walks for a batch of band-packed (B, Lt, n_col) z buffers.
+# ------------------------------------------------------------ device walk
 
-    Native C++ walker when built (beg recomputed from w per row, matching
-    ``traceback``); Python fallback otherwise.
+@functools.partial(jax.jit, static_argnames=("S", "pack"))
+def traceback_ops_device(zp: jnp.ndarray, qlen: jnp.ndarray,
+                         tlen: jnp.ndarray, w: jnp.ndarray, S: int,
+                         pack: bool = False):
+    """Walk ``global_batch``'s band-packed direction bytes ON DEVICE.
+
+    The walk is the exact ksw_global2 backtrack (same bit reads as
+    ``traceback``), vectorized over tasks with masked lanes; only the
+    per-step op stream (B, S) uint8 and the final (i, k) cursors come back
+    to the host — ~Lq/2 bytes per task instead of the whole z matrix. Ops
+    are emitted in walk (reverse-alignment) order; 255 marks end-of-walk.
+    S must be >= Lt + Lq (a step consumes at least one of i/k).
     """
-    B = len(qlens)
+    B, Lt, n_col = zp.shape
+    zflat = zp.reshape(B, Lt * n_col).astype(jnp.int32)
+    qlen = qlen.astype(jnp.int32)
+    tlen = tlen.astype(jnp.int32)
+    w = w.astype(jnp.int32)
+    i0 = tlen - 1
+    k0 = jnp.minimum(i0 + w + 1, qlen) - 1
+
+    def step(s, carry):
+        i, k, which, buf = carry
+        active = (i >= 0) & (k >= 0)
+        beg = jnp.maximum(i - w, 0)
+        col = jnp.clip(k - beg, 0, n_col - 1)
+        row = jnp.clip(i, 0, Lt - 1)
+        d = jnp.take_along_axis(zflat, (row * n_col + col)[:, None],
+                                axis=1)[:, 0]
+        which_new = (d >> (which << 1)) & 3
+        op = jnp.where(which_new == 0, 0, jnp.where(which_new == 1, 2, 1))
+        di = jnp.where(which_new == 2, 0, 1)   # I consumes no target row
+        dk = jnp.where(which_new == 1, 0, 1)   # D consumes no query col
+        buf = buf.at[:, s].set(
+            jnp.where(active, op, 255).astype(jnp.uint8))
+        i = jnp.where(active, i - di, i)
+        k = jnp.where(active, k - dk, k)
+        which = jnp.where(active, which_new, which)
+        return (i, k, which, buf)
+
+    buf0 = jnp.full((B, S), 255, jnp.uint8)
+    i, k, which, buf = jax.lax.fori_loop(
+        0, S, step, (i0, k0, jnp.zeros_like(i0), buf0))
+    if pack:
+        # 4 two-bit ops per byte (LSB-first): ops are 0/1/2 and the 255
+        # end-marker folds to 3 under & 3
+        assert S % 4 == 0, "pack requires S % 4 == 0"
+        p = (buf & 3).reshape(B, S // 4, 4).astype(jnp.uint8)
+        packed = (p[:, :, 0] | (p[:, :, 1] << 2) | (p[:, :, 2] << 4)
+                  | (p[:, :, 3] << 6))
+        return packed, i, k
+    return buf, i, k
+
+
+@functools.partial(jax.jit, static_argnames=("S",))
+def traceback_ops_fused(zp: jnp.ndarray, qlen: jnp.ndarray, tlen: jnp.ndarray,
+                        w: jnp.ndarray, score: jnp.ndarray, S: int):
+    """Device traceback + bit-pack + single-buffer marshalling.
+
+    Returns ONE (B, S//4 + 12) uint8 array: the packed op stream followed by
+    score, i_fin, k_fin as little-endian int32 bytes, so a reg2aln wave
+    costs one device->host transfer."""
+    packed, i, k = traceback_ops_device(zp, qlen, tlen, w, S=S, pack=True)
+
+    def b32(x):
+        v = x.astype(jnp.int32)[:, None]
+        return jax.lax.bitcast_convert_type(v, jnp.uint8).reshape(-1, 4)
+
+    return jnp.concatenate([packed, b32(score), b32(i), b32(k)], axis=1)
+
+
+def split_traceback_blob(blob: np.ndarray, S: int):
+    """Host-side unpack of traceback_ops_fused's buffer."""
+    P = S // 4
+    packed = blob[:, :P]
+    score = np.ascontiguousarray(blob[:, P:P + 4]).view(np.int32).ravel()
+    i_fin = np.ascontiguousarray(blob[:, P + 4:P + 8]).view(np.int32).ravel()
+    k_fin = np.ascontiguousarray(blob[:, P + 8:P + 12]).view(np.int32).ravel()
+    return packed, score, i_fin, k_fin
+
+
+def _native_finish(symbol: str, ops: np.ndarray, i_fin, k_fin, S: int):
     from ..index.suffix import _load_native
     lib = _load_native()
-    if lib is not None and hasattr(lib, "ksw_traceback_packed_batch"):
-        import ctypes
-        z = np.ascontiguousarray(zs[:B], dtype=np.uint8)
-        qv = np.asarray(qlens, dtype=np.int32)
-        tv = np.asarray(tlens, dtype=np.int32)
-        wv = np.asarray(ws, dtype=np.int32)
-        cap = int(qv.max() + tv.max() + 2) if B else 1
-        cig = np.empty((B, 2 * cap), dtype=np.int32)
-        nops = np.empty(B, dtype=np.int32)
-        i64 = ctypes.c_int64
-        lib.ksw_traceback_packed_batch(
-            ctypes.c_void_p(z.ctypes.data), i64(B), i64(z.shape[1]),
-            i64(z.shape[2]), ctypes.c_void_p(qv.ctypes.data),
-            ctypes.c_void_p(tv.ctypes.data), ctypes.c_void_p(wv.ctypes.data),
-            ctypes.c_void_p(cig.ctypes.data), i64(cap),
-            ctypes.c_void_p(nops.ctypes.data))
+    if lib is None or not hasattr(lib, symbol):
+        return None
+    import ctypes
+    B = ops.shape[0]
+    o = np.ascontiguousarray(ops, dtype=np.uint8)
+    iv = np.asarray(i_fin, dtype=np.int32)
+    kv = np.asarray(k_fin, dtype=np.int32)
+    cap = S + 2
+    cig = np.empty((B, 2 * cap), dtype=np.int32)
+    nops = np.empty(B, dtype=np.int32)
+    i64 = ctypes.c_int64
+    getattr(lib, symbol)(
+        ctypes.c_void_p(o.ctypes.data), i64(B), i64(S),
+        ctypes.c_void_p(iv.ctypes.data), ctypes.c_void_p(kv.ctypes.data),
+        ctypes.c_void_p(cig.ctypes.data), i64(cap),
+        ctypes.c_void_p(nops.ctypes.data))
+    return cig, nops
+
+
+def cigars_from_ops_raw(ops: np.ndarray, i_fin: np.ndarray,
+                        k_fin: np.ndarray):
+    """Native RLE finish of the raw (B, S) op stream, returning the
+    ((B, 2*cap) int32 matrix, nops) pair that Reg2AlnSession.feed
+    consumes. None when the native helper is unavailable."""
+    return _native_finish("ksw_cigar_from_ops_batch", ops, i_fin, k_fin,
+                          ops.shape[1])
+
+
+def cigars_from_ops_packed(packed: np.ndarray, i_fin: np.ndarray,
+                           k_fin: np.ndarray, S: int):
+    """Native RLE finish for the bit-packed (B, S//4) op stream produced by
+    ``traceback_ops_device(..., pack=True)``. None without the native lib."""
+    return _native_finish("ksw_cigar_from_ops_packed_batch", packed, i_fin,
+                          k_fin, S)
+
+
+def cigars_from_ops(ops: np.ndarray, i_fin: np.ndarray, k_fin: np.ndarray
+                    ) -> List[List[Tuple[int, int]]]:
+    """Host finish of the device walk: RLE-merge ops + tails, reversed.
+
+    Identical output to ``traceback``; uses the native C++ helper when
+    built.
+    """
+    B, S = ops.shape
+    raw = cigars_from_ops_raw(ops, i_fin, k_fin)
+    if raw is not None:
+        cig, nops = raw
         out = []
         for b in range(B):
             n = int(nops[b])
-            if n < 0:
-                out.append(traceback(zs[b], begs[b], int(qv[b]), int(tv[b]),
-                                     int(wv[b])))
-                continue
             flat = cig[b, :2 * n].tolist()
             out.append(list(zip(flat[0::2], flat[1::2])))
         return out
-    return [traceback(zs[b], begs[b], int(qlens[b]), int(tlens[b]),
-                      int(ws[b])) for b in range(B)]
+    out = []
+    for b in range(B):
+        cigar: List[Tuple[int, int]] = []
+        for s in range(S):
+            v = int(ops[b, s])
+            if v == 255:
+                break
+            _push(cigar, v, 1)
+        if int(i_fin[b]) >= 0:
+            _push(cigar, 2, int(i_fin[b]) + 1)
+        if int(k_fin[b]) >= 0:
+            _push(cigar, 1, int(k_fin[b]) + 1)
+        cigar.reverse()
+        out.append([tuple(c) for c in cigar])
+    return out
+
+
+# -------------------------------------------------------------- host walk
+
+def _push(cigar: List[Tuple[int, int]], op: int, ln: int) -> None:
+    if cigar and cigar[-1][0] == op:
+        cigar[-1] = (op, cigar[-1][1] + ln)
+    else:
+        cigar.append((op, ln))
 
 
 def traceback(z: np.ndarray, begs: np.ndarray, qlen: int, tlen: int,
@@ -181,13 +314,6 @@ def traceback(z: np.ndarray, begs: np.ndarray, qlen: int, tlen: int,
     Ops: 0=M, 1=I (query), 2=D (target).
     """
     cigar: List[Tuple[int, int]] = []
-
-    def push(op, ln):
-        if cigar and cigar[-1][0] == op:
-            cigar[-1] = (op, cigar[-1][1] + ln)
-        else:
-            cigar.append((op, ln))
-
     which = 0
     i = tlen - 1
     k = min(i + w + 1, qlen) - 1
@@ -195,18 +321,18 @@ def traceback(z: np.ndarray, begs: np.ndarray, qlen: int, tlen: int,
         beg = int(begs[i])
         which = (int(z[i, k - beg]) >> (which << 1)) & 3
         if which == 0:
-            push(0, 1)
+            _push(cigar, 0, 1)
             i -= 1
             k -= 1
         elif which == 1:
-            push(2, 1)
+            _push(cigar, 2, 1)
             i -= 1
         else:
-            push(1, 1)
+            _push(cigar, 1, 1)
             k -= 1
     if i >= 0:
-        push(2, i + 1)
+        _push(cigar, 2, i + 1)
     if k >= 0:
-        push(1, k + 1)
+        _push(cigar, 1, k + 1)
     cigar.reverse()
     return cigar

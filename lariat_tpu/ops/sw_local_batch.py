@@ -26,7 +26,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-NEG = jnp.int32(-0x40000000)
+NEG = -0x40000000
 
 
 class LocalBatchResult(NamedTuple):
@@ -180,7 +180,7 @@ def local_two_pass(query: jnp.ndarray, qlen: jnp.ndarray,
                    mat: jnp.ndarray, minsc: jnp.ndarray,
                    o_del: int = 6, e_del: int = 1, o_ins: int = 6,
                    e_ins: int = 1, max_sc: int = 1) -> jnp.ndarray:
-    """Full ksw_align2 in one dispatch (XLA twin of local_two_pass_pallas).
+    """Full ksw_align2 (forward pass + reversed start pass) in one dispatch.
 
     Returns a packed (8, B) int32 buffer:
         rows: score, te, qe, score2, te2, qe_r, te_r, scored(0/1)

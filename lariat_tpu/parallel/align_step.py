@@ -4,9 +4,9 @@ The flagship device computation: for a batch of reads, run FM-index exact
 search, dereference hit rows through the sampled suffix array (bounded LF
 walk), fetch the candidate reference window from the device-resident 2-bit
 pac, and run banded SW extension — all under one jit, shardable over a 1-D
-data mesh with the genome index replicated (ICI collectives only for stats).
+data mesh with the genome index replicated (collectives only for stats).
 
-This is the TPU-native analog of the per-read candidate generation hot path
+This is the device analog of the per-read candidate generation hot path
 (reference C hot loops #1-#3, SURVEY.md section 3.2).
 """
 
@@ -23,7 +23,6 @@ from ..index.fmindex import FMIndex
 from ..ops.fm_batch import (DeviceFMIndex, backward_ext_batch, lf_batch,
                             occ1_batch, occ4_batch, pac_words_host)
 from ..ops.sw_batch import extend_batch
-from ..ops.sw_extend_pallas import extend_batch_pallas
 
 
 class DeviceGenome(NamedTuple):
@@ -169,8 +168,7 @@ def fetch_window_batch(g: DeviceGenome, start: jnp.ndarray,
     shifts = jnp.arange(15, -1, -1, dtype=jnp.uint32) * 2
     codes16 = ((words[:, :, None] >> shifts[None, None, :]) & 3)
     codes = codes16.reshape(codes16.shape[0], -1).astype(jnp.int32)
-    # realign by the in-word offset (0..15) with 16 static-slice selects:
-    # a lane-dim take_along_axis gather is ~10x slower on TPU
+    # realign by the in-word offset (0..15) with 16 static-slice selects
     word_start = (first_byte // 4) * 16
     off = (start - word_start).astype(jnp.int32)          # in [0, 15]
     out = jnp.zeros((codes.shape[0], length), jnp.int32)
@@ -189,11 +187,10 @@ class AlignStepResult(NamedTuple):
     mapped: jnp.ndarray     # (B,) bool
 
 
-@functools.partial(jax.jit, static_argnames=("seed_len", "window",
-                                             "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("seed_len", "window"))
 def align_step(g: DeviceGenome, reads: jnp.ndarray, lens: jnp.ndarray,
-               mat: jnp.ndarray, seed_len: int = 32, window: int = 32,
-               use_pallas: bool = False) -> AlignStepResult:
+               mat: jnp.ndarray, seed_len: int = 32,
+               window: int = 32) -> AlignStepResult:
     """One device alignment step: seed by exact suffix match, SA-dereference,
     fetch the implied window, extend to a full-read score.
 
@@ -231,8 +228,7 @@ def align_step(g: DeviceGenome, reads: jnp.ndarray, lens: jnp.ndarray,
         jnp.where(jnp.take_along_axis(reads, rev_idx, axis=1) < 4,
                   3 - jnp.take_along_axis(reads, rev_idx, axis=1), 4), 4)
     oriented = jnp.where(is_rev[:, None], revcomp, reads)
-    ext_fn = extend_batch_pallas if use_pallas else extend_batch
-    ext = ext_fn(
+    ext = extend_batch(
         oriented, lens, target,
         jnp.full((B,), L + window, jnp.int32),
         mat, jnp.full((B,), window, jnp.int32),
@@ -270,12 +266,10 @@ def exact_match_batch_suffix(fmd: DeviceFMIndex, reads: jnp.ndarray,
     return jax.lax.fori_loop(0, n_iters, step, (k0, l0))
 
 
-@functools.partial(jax.jit, static_argnames=("window", "min_seed_len",
-                                             "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("window", "min_seed_len"))
 def align_step_smem(g: DeviceGenome, reads: jnp.ndarray, lens: jnp.ndarray,
                     mat: jnp.ndarray, window: int = 32,
-                    min_seed_len: int = 19,
-                    use_pallas: bool = False) -> AlignStepResult:
+                    min_seed_len: int = 19) -> AlignStepResult:
     """One device alignment step with REAL round-1 SMEM seeding.
 
     Runs the production SMEM enumeration kernel (ops/smem_device.py
@@ -328,8 +322,7 @@ def align_step_smem(g: DeviceGenome, reads: jnp.ndarray, lens: jnp.ndarray,
         jnp.where(jnp.take_along_axis(reads, rev_idx, axis=1) < 4,
                   3 - jnp.take_along_axis(reads, rev_idx, axis=1), 4), 4)
     oriented = jnp.where(is_rev[:, None], revcomp, reads)
-    ext_fn = extend_batch_pallas if use_pallas else extend_batch
-    ext = ext_fn(
+    ext = extend_batch(
         oriented, lens, target,
         jnp.full((B,), L + window, jnp.int32),
         mat, jnp.full((B,), window, jnp.int32),

@@ -2,7 +2,7 @@
 
 Equivalents of the reference's GetChains (lariat.go:1706-1788), GetAlignments
 (lariat.go:1552-1704) and tagBestAlignments (lariat.go:1466-1549), driven by
-the TPU-native alignment engine instead of the C library.
+the batched alignment engine instead of the C library.
 """
 
 from __future__ import annotations

@@ -122,7 +122,7 @@ def process_barcode(engine: AlignmentEngine, reads: List[FastQRecord],
 def process_barcode_group(engine, barcode_sets, config: RFAConfig,
                           centromeres=None, stats=None, simulated=False
                           ) -> List[BarcodeResult]:
-    """Process many barcodes with one device priming pass (TPU mode).
+    """Process many barcodes with one device priming pass.
 
     Identical output to per-barcode processing; the candidate-generation
     device waves run once over the whole group, amortizing per-wave latency.

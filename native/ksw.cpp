@@ -2,7 +2,7 @@
 //
 // Native versions of the three DP routines in lariat_tpu/align/ksw.py (the
 // reference's C hot loops #2/#3 and mate-rescue SW). Used by the worker
-// processes; the Pallas kernels in lariat_tpu/ops cover the device path.
+// processes; the batched JAX versions in lariat_tpu/ops cover the device path.
 // Semantics are asserted equal to the Python reference by the existing ksw
 // test suite (the Python wrappers dispatch here when the library is built).
 
@@ -890,68 +890,6 @@ void ksw_local_batch(const uint8_t* queries, const int64_t* q_off,
 #endif
 }
 
-}  // extern "C"
-
-namespace {
-
-// Shared cigar walk over one direction-byte matrix. zrow(i) returns the row
-// base pointer; col(i, k) maps a query column to the storage column.
-template <typename RowFn, typename ColFn>
-int32_t walk_one(RowFn zrow, ColFn col, int qlen, int tlen, int w,
-                 int32_t* cigar_out, int64_t cap_pairs) {
-  int n_ops = 0;
-  auto push = [&](int op, int ln) -> bool {
-    if (n_ops && cigar_out[2 * (n_ops - 1)] == op) {
-      cigar_out[2 * (n_ops - 1) + 1] += ln;
-      return true;
-    }
-    if (n_ops >= cap_pairs) return false;
-    cigar_out[2 * n_ops] = op;
-    cigar_out[2 * n_ops + 1] = ln;
-    ++n_ops;
-    return true;
-  };
-  int which = 0, i = tlen - 1;
-  int k = std::min(i + w + 1, qlen) - 1;
-  while (i >= 0 && k >= 0) {
-    which = (zrow(i)[col(i, k)] >> (which << 1)) & 3;
-    bool ok;
-    if (which == 0) { ok = push(0, 1); --i; --k; }
-    else if (which == 1) { ok = push(2, 1); --i; }
-    else { ok = push(1, 1); --k; }
-    if (!ok) return -1;
-  }
-  if (i >= 0 && !push(2, i + 1)) return -1;
-  if (k >= 0 && !push(1, k + 1)) return -1;
-  for (int a = 0, b = n_ops - 1; a < b; ++a, --b) {
-    std::swap(cigar_out[2 * a], cigar_out[2 * b]);
-    std::swap(cigar_out[2 * a + 1], cigar_out[2 * b + 1]);
-  }
-  return n_ops;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Batched cigar walks over device-produced direction bytes.
-// Unpacked layout: z is (B, Lt_dim, Lq_dim) with bytes at [i, j] directly.
-// cigars is (B, 2*cap_pairs) int32; n_ops_out[b] = op count or -1 on
-// overflow (callers size cap_pairs = qlen+tlen+2, which cannot overflow).
-void ksw_traceback_unpacked_batch(const uint8_t* z, int64_t B,
-                                  int64_t Lt_dim, int64_t Lq_dim,
-                                  const int32_t* qlen, const int32_t* tlen,
-                                  const int32_t* w, int32_t* cigars,
-                                  int64_t cap_pairs, int32_t* n_ops_out) {
-  for (int64_t b = 0; b < B; ++b) {
-    const uint8_t* zb = z + b * Lt_dim * Lq_dim;
-    n_ops_out[b] = walk_one(
-        [&](int i) { return zb + (int64_t)i * Lq_dim; },
-        [](int, int k) { return k; },
-        qlen[b], tlen[b], w[b], cigars + b * 2 * cap_pairs, cap_pairs);
-  }
-}
-
 // Finish a device-side traceback walk: ops (B, S) uint8 in walk order
 // (255 = end), plus final i/k cursors for the off-matrix tails. RLE-merge,
 // append tails, reverse — identical to the z-matrix walkers' output.
@@ -1016,23 +954,6 @@ void ksw_cigar_from_ops_packed_batch(const uint8_t* packed, int64_t B,
       std::swap(out[2 * a + 1], out[2 * c + 1]);
     }
     n_ops_out[b] = n;
-  }
-}
-
-// Packed layout: z is (B, Lt_dim, n_col) with row i holding band columns
-// [beg_i, ...) at [i, k - beg_i] where beg_i = max(i - w, 0).
-void ksw_traceback_packed_batch(const uint8_t* z, int64_t B, int64_t Lt_dim,
-                                int64_t n_col, const int32_t* qlen,
-                                const int32_t* tlen, const int32_t* w,
-                                int32_t* cigars, int64_t cap_pairs,
-                                int32_t* n_ops_out) {
-  for (int64_t b = 0; b < B; ++b) {
-    const uint8_t* zb = z + b * Lt_dim * n_col;
-    int wb = w[b];
-    n_ops_out[b] = walk_one(
-        [&](int i) { return zb + (int64_t)i * n_col; },
-        [wb](int i, int k) { return k - (i > wb ? i - wb : 0); },
-        qlen[b], tlen[b], wb, cigars + b * 2 * cap_pairs, cap_pairs);
   }
 }
 

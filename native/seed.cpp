@@ -308,8 +308,8 @@ void collect_intv(const FMView& fm, const uint8_t* q, int len,
 // ---------------------------------------------------------------------------
 // Interleaved seeding. At genome scale every bwt_extend is 2 occ_four calls
 // = up to 4 DRAM cache-line misses, and the per-read extension chain is
-// strictly serial, so a single read walks at DRAM latency (~130 us/151bp
-// read measured at 3.1 Gbp). collect_intv_co is collect_intv rewritten as a
+// strictly serial, so a single read walks at DRAM latency.
+// collect_intv_co is collect_intv rewritten as a
 // C++20 coroutine that issues prefetches for the next bwt_extend's lines and
 // suspends; a round-robin scheduler keeps W reads' chains in flight so the
 // misses overlap. The algorithm per read is UNCHANGED (same statements, same
@@ -582,7 +582,7 @@ int64_t sa_lookup(const FMView& fm, int64_t k) {
 // Issue prefetches for the cache lines the next LF step (or the final
 // sa_samples read) at row k will touch. At genome scale every step is a
 // DRAM miss into the multi-GB BWT/occ arrays, so a single in-order walk is
-// latency-bound (~0.5 us/step measured at 3.1 Gbp); the interleaved walker
+// latency-bound; the interleaved walker
 // below keeps many independent walks in flight so those misses overlap.
 inline void sa_prefetch(const FMView& fm, int64_t k) {
   if (k % fm.sa_intv == 0) {

@@ -36,7 +36,7 @@ def _reads(genome, rng, n=24):
 def test_batch_engine_matches_host(dup_genome):  # noqa: F811
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(31)
     seqs = _reads(genome, rng)
     got_all = batch.align_batch(seqs)
@@ -50,7 +50,7 @@ def test_batch_engine_matches_host(dup_genome):  # noqa: F811
 def test_batch_engine_phix_golden(request):
     inputs = request.getfixturevalue("reference_inputs")
     fm = fmindex.load_bwa_index(str(inputs / "phix" / "PhiX.fa"))
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     read = (b"TCAAAAACTGACGCGTTGGATGAGGAGAAGTGGCTTAATATGCTTGGCACGTTCGTCAAG"
             b"GACTGGTTTA")
     regs = batch.align_batch([read])[0]
@@ -61,7 +61,7 @@ def test_batch_engine_phix_golden(request):
 def test_reg2aln_batch_matches_host(dup_genome):  # noqa: F811
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(41)
     seqs = _reads(genome, rng, n=20)
     tasks = []
@@ -80,7 +80,7 @@ def test_process_barcode_batched_matches_serial(dup_genome):  # noqa: F811
     from test_rfa import _make_pair
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     reads = []
     for i, pos in enumerate(range(1500, 3100, 200)):
         reads.append(_make_pair(genome, pos, 300, f"m1:{i}"))
@@ -96,33 +96,35 @@ def test_process_barcode_batched_matches_serial(dup_genome):  # noqa: F811
                     a2.cigar, a2.mapq, a2.active, a2.is_proper, a2.duplicate)
 
 
-def test_reg2aln_batch_pallas_interpret(dup_genome, monkeypatch):  # noqa: F811
-    """use_pallas reg2aln path (interpret mode on CPU) matches the host."""
-    import lariat_tpu.ops.sw_global_pallas as sgp
-    orig = sgp.global_batch_pallas
-    monkeypatch.setattr(
-        sgp, "global_batch_pallas",
-        lambda *a, **kw: orig(*a, **{**kw, "interpret": True, "tile_b": 8}))
+@pytest.mark.parametrize("resident", [True, False])
+def test_reg2aln_session_waves_match_host(dup_genome, monkeypatch,
+                                          resident):  # noqa: F811
+    """The reg2aln session's device waves (XLA global DP + device walk,
+    inputs gathered on device or uploaded as buffers) match the host, and
+    the engine counts every wave and its compiled shape: B pinned to the
+    chunk size, lengths to the 151 bp tiers."""
+    from lariat_tpu.align import native_engine
+    if not native_engine.Reg2AlnSession.available():
+        pytest.skip("native session unavailable")
+    if not resident:
+        monkeypatch.setenv("LARIAT_NO_RESIDENT", "1")
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=True)
-    batch.r2a_wave_pad = 0  # interpret mode: keep wave B tiny
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(43)
     seqs = _reads(genome, rng, n=10)
     tasks = []
     for seq in seqs:
         for reg in host.align1(encode_read(seq)):
             tasks.append((seq, reg))
-    # only exercise the reg2aln waves with pallas; extension wave also uses
-    # pallas in this engine, so patch extend too
-    import lariat_tpu.ops.sw_extend_pallas as sep
-    orig_e = sep.extend_batch_pallas
-    monkeypatch.setattr(
-        sep, "extend_batch_pallas",
-        lambda *a, **kw: orig_e(*a, **{**kw, "interpret": True, "tile_b": 8}))
     got = batch.reg2aln_batch(tasks)
     for (seq, reg), g in zip(tasks, got):
         assert g == host.reg2aln(seq, reg), (seq, reg)
+    ws = batch.wave_stats
+    assert ws["r2a"] > 0 and ws["n"] == ws["r2a"]
+    shapes = {s for s in batch.wave_shapes if s[0] == "r2a"}
+    assert {s[1] for s in shapes} == {batch.R2ALN_CHUNK}
+    assert {s[2] for s in shapes} <= {64, 192}
 
 
 def test_session_path_fuzz_1k(dup_genome):  # noqa: F811
@@ -134,7 +136,7 @@ def test_session_path_fuzz_1k(dup_genome):  # noqa: F811
         pytest.skip("native session unavailable")
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(97)
     seqs = _reads(genome, rng, n=1000)
     got = batch._align_batch_session(seqs)
@@ -156,7 +158,7 @@ def test_reg2aln_session_fuzz(dup_genome):  # noqa: F811
         pytest.skip("native session unavailable")
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(113)
     seqs = _reads(genome, rng, n=150)
     tasks = []
@@ -228,7 +230,7 @@ def test_rescue_pairs_batch_device_fn_matches(dup_genome):  # noqa: F811
     import copy
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(58)
     raw = _rescue_pairs(genome, rng, n=20)
     delta = 5
@@ -250,7 +252,7 @@ def test_prime_regions_with_rescue_barcode_parity(dup_genome):  # noqa: F811
     from test_rfa import _make_pair
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     reads = []
     for i, pos in enumerate(range(1500, 3100, 200)):
         reads.append(_make_pair(genome, pos, 300, f"m1:{i}"))
@@ -290,10 +292,10 @@ def test_session_buffer_path_matches_resident(dup_genome, monkeypatch):  # noqa:
         if rng.integers(0, 2):
             seg = bytearray(bytes(seg).translate(comp)[::-1])
         seqs.append(bytes(seg))
-    eng = BatchAlignmentEngine(fm, use_pallas=False)
+    eng = BatchAlignmentEngine(fm)
     res_regs = eng.align_batch(seqs)
     monkeypatch.setenv("LARIAT_NO_RESIDENT", "1")
-    eng2 = BatchAlignmentEngine(fm, use_pallas=False)
+    eng2 = BatchAlignmentEngine(fm)
     buf_regs = eng2.align_batch(seqs)
     assert len(res_regs) == len(buf_regs)
     for a, b in zip(res_regs, buf_regs):

@@ -11,6 +11,7 @@ from lariat_tpu.io.bamread import BamFile
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_cli_end_to_end(tmp_path):
@@ -150,7 +151,7 @@ def test_cli_byte_determinism(tmp_path):
             [_sys.executable, "-m", "lariat_tpu.cli", "-reads", str(fq),
              "-genome", str(fasta), "-output", str(out), "-threads", "2",
              "-first_chunk"],
-            capture_output=True, text=True, cwd="/root/repo",
+            capture_output=True, text=True, cwd=REPO,
             env={**os.environ, "JAX_PLATFORMS": "cpu"})
         assert r.returncode == 0, r.stderr[-2000:]
         cur = {p.split("/")[-1]: open(p, "rb").read()
@@ -202,7 +203,7 @@ def test_cli_native_vs_python_stacks_identical(tmp_path):
             [_sys.executable, "-m", "lariat_tpu.cli", "-reads", str(fq),
              "-genome", str(fasta), "-output", str(out), "-threads", "2",
              "-first_chunk"],
-            capture_output=True, text=True, cwd="/root/repo",
+            capture_output=True, text=True, cwd=REPO,
             env={**os.environ, "JAX_PLATFORMS": "cpu", **env_extra})
         assert r.returncode == 0, r.stderr[-1500:]
         cur = {p.split("/")[-1]: open(p, "rb").read()
@@ -249,12 +250,15 @@ def test_cli_device_primed_matches_host(tmp_path):
             [_sys.executable, "-m", "lariat_tpu.cli", "-reads", str(fq),
              "-genome", str(fasta), "-output", str(out), "-threads", "2",
              "-use_device", mode, "-first_chunk"],
-            capture_output=True, text=True, cwd="/root/repo",
+            capture_output=True, text=True, cwd=REPO,
             env={**os.environ, "JAX_PLATFORMS": "cpu",
                  "LARIAT_PRIME_THREADS": "2"})
         assert r.returncode == 0, r.stderr[-2000:]
         outs[mode] = {p.split("/")[-1]: open(p, "rb").read()
                       for p in glob.glob(str(out / "*.bam"))}
+        if mode == "on":
+            # every pair primed on the device, none host-routed
+            assert "primed pairs 35  host pairs 0" in r.stdout, r.stdout
     assert sorted(outs["on"]) == sorted(outs["off"])
     # @PG CL embeds -output and -use_device: compare past the header block
     for k in outs["off"]:
@@ -265,3 +269,71 @@ def test_cli_device_primed_matches_host(tmp_path):
         ra = list(BamFile(str(tmp_path / "out_off" / k)))
         rb = list(BamFile(str(tmp_path / "out_on" / k)))
         assert ra == rb, k
+
+
+def _tiny_inputs(tmp_path):
+    rng = np.random.default_rng(3)
+    genome = BASES[rng.integers(0, 4, 20000)].tobytes()
+    fasta = tmp_path / "g.fa"
+    fasta.write_text(">chr1\n" + genome.decode() + "\n")
+    fq = tmp_path / "r.fastq"
+    qual = "I" * 100
+    with open(fq, "w") as f:
+        bc = "AAACAGAGAAAGAT-1"
+        for i in range(4):
+            pos = 1000 + i * 400
+            r1 = genome[pos:pos + 100].decode()
+            r2 = genome[pos + 200:pos + 300].translate(COMP)[::-1].decode()
+            f.write(f"@t:r{i} x\n{r1}\n{qual}\n{r2}\n{qual}\n"
+                    f"{bc},{bc.split('-')[0]}\nJJJJJJJJJJJJJJ\n"
+                    f"ACGTACGT\nIIIIIIII\n")
+    return fasta, fq
+
+
+def test_cli_use_device_on_without_gpu_fails(tmp_path):
+    """-use_device on means the card: with no GPU and no explicit CPU pin
+    the run fails instead of host-routing every pair."""
+    import subprocess
+    import sys as _sys
+    fasta, fq = _tiny_inputs(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run(
+        [_sys.executable, "-m", "lariat_tpu.cli", "-reads", str(fq),
+         "-genome", str(fasta), "-output", str(tmp_path / "out"),
+         "-threads", "2", "-use_device", "on"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode != 0
+    assert "-use_device on needs a GPU" in r.stderr
+    assert "Lariat completed successfully" not in r.stdout
+
+
+def test_cli_use_device_on_needs_worker_pool(tmp_path):
+    """-threads 1 runs no device priming, so -use_device on refuses it."""
+    fasta, fq = _tiny_inputs(tmp_path)
+    with pytest.raises(SystemExit, match="needs -threads >= 2"):
+        cli.main(["-reads", str(fq), "-genome", str(fasta), "-output",
+                  str(tmp_path / "out"), "-threads", "1",
+                  "-use_device", "on"])
+
+
+@pytest.mark.parametrize("set_env", [True, False])
+def test_compile_cache_dir(tmp_path, set_env):
+    """JAX_COMPILATION_CACHE_DIR is honoured as set; without it the cache
+    is the fixed .jax_cache/ at the root of the checkout."""
+    import subprocess
+    import sys as _sys
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    want = os.path.join(REPO, ".jax_cache")
+    if set_env:
+        want = str(tmp_path / "cache")
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    r = subprocess.run(
+        [_sys.executable, "-c", "import jax, lariat_tpu.ops; "
+         "print(jax.config.jax_compilation_cache_dir)"],
+        capture_output=True, text=True, cwd=str(tmp_path),
+        env={**env, "PYTHONPATH": REPO}, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == want

@@ -113,10 +113,10 @@ def test_align_batch_with_device_seed(dup_genome, monkeypatch):  # noqa: F811
         if rng.integers(0, 2):
             seg = bytearray(bytes(seg).translate(comp)[::-1])
         seqs.append(bytes(seg))
-    eng = BatchAlignmentEngine(fm, use_pallas=False)
+    eng = BatchAlignmentEngine(fm)
     host_regs = eng.align_batch(seqs)
     monkeypatch.setenv("LARIAT_DEVICE_SEED", "1")
-    eng2 = BatchAlignmentEngine(fm, use_pallas=False)
+    eng2 = BatchAlignmentEngine(fm)
     dev_regs = eng2.align_batch(seqs)
     assert host_regs == dev_regs
 
@@ -225,3 +225,41 @@ def test_sa_lookup_batch_host_matches_scalar(dup_genome):  # noqa: F811
     got = sa_lookup_batch_host(dg, fm, rows, phase_steps=4)  # force phase B
     want = np.array([fm.sa_lookup(int(r)) for r in rows], np.int64)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stage", ["upload", "collect"])
+def test_forced_device_seeding_failure_raises(dup_genome, monkeypatch,
+                                              stage):  # noqa: F811
+    """LARIAT_DEVICE_SEED=1 is a hard requirement: a failing index upload
+    or seeding call raises instead of falling back to the host seeder."""
+    from lariat_tpu.align.batch_engine import BatchAlignmentEngine
+    from lariat_tpu.ops import fm_batch, smem_device
+
+    def boom(*a, **kw):
+        raise RuntimeError(f"injected {stage} failure")
+
+    if stage == "upload":
+        monkeypatch.setattr(fm_batch.DeviceFMIndex, "from_host", boom)
+    else:
+        monkeypatch.setattr(smem_device, "collect_seeds_rbegs_device", boom)
+    monkeypatch.setenv("LARIAT_DEVICE_SEED", "1")
+    fm, genome = dup_genome
+    eng = BatchAlignmentEngine(fm)
+    with pytest.raises(RuntimeError, match=f"injected {stage} failure"):
+        eng.align_batch([genome[100:251]])
+
+
+def test_smem_unroll_below_one_is_rejected():
+    """LARIAT_SMEM_UNROLL=0 would never advance the SMEM loop: importing
+    the module refuses it."""
+    import os
+    import subprocess
+    import sys
+    r = subprocess.run(
+        [sys.executable, "-c", "import lariat_tpu.ops.smem_device"],
+        capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env={**os.environ, "JAX_PLATFORMS": "cpu",
+             "LARIAT_SMEM_UNROLL": "0"})
+    assert r.returncode != 0
+    assert "LARIAT_SMEM_UNROLL must be >= 1" in r.stderr

@@ -67,7 +67,7 @@ def _messy_read(genome, rng):
 def test_messy_batch_matches_host(dup_genome, round_):  # noqa: F811
     fm, genome = dup_genome
     host = AlignmentEngine(fm)
-    batch = BatchAlignmentEngine(fm, use_pallas=False)
+    batch = BatchAlignmentEngine(fm)
     rng = np.random.default_rng(round_ * 977 + 5)
     seqs = [_messy_read(genome, rng) for _ in range(20)]
     got_all = batch.align_batch(seqs)

@@ -78,51 +78,50 @@ def test_local_align_batch_matches_local_align():
     tasks = _rand_tasks(rng, 60) + _rand_tasks(rng, 15, mutate=False)
     minsc = 19
     out = local_align_batch([(q, t) for q, t in tasks], mat,
-                            6, 1, 6, 1, minsc, backend="xla")
+                            6, 1, 6, 1, minsc)
     for i, (qi, ti) in enumerate(tasks):
         ref = ksw.local_align(qi, ti, mat, 6, 1, 6, 1, minsc)
         assert out[i] == ref, f"task {i}: {out[i]} vs {ref}"
 
 
-@pytest.mark.parametrize("seed", [3])
-def test_local_batch_pallas_interpret_matches_xla(seed):
-    from lariat_tpu.ops.sw_local_batch import local_batch
-    from lariat_tpu.ops.sw_local_pallas import local_batch_pallas
-    rng = np.random.default_rng(seed)
+@pytest.mark.parametrize("q_tiers,t_tiers,n", [
+    (None, None, 5),
+    ((192, 768), (704, 1408), 130),
+    ((64,), (64,), 3),
+])
+def test_local_align_batch_wrapper_shapes(monkeypatch, q_tiers, t_tiers, n):
+    """local_align_batch pads lengths to the rescue tiers (64-multiples
+    past them or without them) and the batch to a power of two >= 128,
+    fills pad rows with never-scoring minsc, and still matches
+    ksw.local_align per task."""
+    from lariat_tpu.align import ksw as ksw_mod
+    from lariat_tpu.ops import sw_local_batch
+    rng = np.random.default_rng(n)
     mat = ksw.fill_score_matrix(1, 4)
-    tasks = _rand_tasks(rng, 40) + _rand_tasks(rng, 10, mutate=False)
-    Lq = max(len(q) for q, _ in tasks)
-    Lt = max(len(t) for _, t in tasks)
-    q, qlen, t, tlen = _pad_batch(tasks, Lq, Lt)
-    minsc = np.full(len(tasks), 19, np.int32)
-    ref = local_batch(q, qlen, t, tlen, np.asarray(mat), minsc, max_sc=1)
-    got = local_batch_pallas(q, qlen, t, tlen, minsc, match_sc=1,
-                             mismatch_sc=-4, n_sc=-1, interpret=True)
-    for name in LocalBatchResultFields():
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, name)), np.asarray(getattr(ref, name)),
-            err_msg=name)
+    tasks = _rand_tasks(rng, n, qmax=151, tmax=700)
+    seen = {}
+    real = sw_local_batch.local_two_pass
 
+    def spy(qa, qlen, ta, tlen, m, minscs, **kw):
+        seen.update(q=qa.shape, t=ta.shape, qlen=np.asarray(qlen),
+                    minsc=np.asarray(minscs))
+        return real(qa, qlen, ta, tlen, m, minscs, **kw)
 
-def LocalBatchResultFields():
-    return ("score", "te", "qe", "score2", "te2")
-
-
-def test_local_align_batch_pallas_wrapper_matches_local_align():
-    """Wrapper-level pallas parity: exercises local_align_batch's own
-    score-matrix -> (match, mismatch, n) translation, which a direct
-    local_batch_pallas call bypasses (a sign bug hid here once)."""
-    from lariat_tpu.align.ksw import local_align_batch
-    rng = np.random.default_rng(11)
-    mat = ksw.fill_score_matrix(1, 4)
-    tasks = _rand_tasks(rng, 30) + _rand_tasks(rng, 10, mutate=False)
-    minsc = 19
-    out = local_align_batch([(q, t) for q, t in tasks], mat,
-                            6, 1, 6, 1, minsc, backend="pallas",
-                            interpret=True)
+    monkeypatch.setattr(sw_local_batch, "local_two_pass", spy)
+    out = ksw_mod.local_align_batch(tasks, mat, 6, 1, 6, 1, 19,
+                                    q_tiers=q_tiers, t_tiers=t_tiers)
+    Bp, Lq, Lt = ksw_mod.local_wave_shape(tasks, q_tiers, t_tiers)
+    assert seen["q"] == (Bp, Lq) and seen["t"] == (Bp, Lt)
+    assert Bp >= max(128, n) and Bp & (Bp - 1) == 0
+    qmax = max(len(q) for q, _ in tasks)
+    tmax = max(len(t) for _, t in tasks)
+    assert Lq == ksw_mod._pad_tier(qmax, q_tiers) >= qmax
+    assert Lt == ksw_mod._pad_tier(tmax, t_tiers) >= tmax
+    assert Lq % 64 == 0 and Lt % 64 == 0
+    assert (seen["qlen"][n:] == 0).all()
+    assert (seen["minsc"][n:] == 1 << 30).all()
     for i, (qi, ti) in enumerate(tasks):
-        ref = ksw.local_align(qi, ti, mat, 6, 1, 6, 1, minsc)
-        assert out[i] == ref, f"task {i}: {out[i]} vs {ref}"
+        assert out[i] == ksw.local_align(qi, ti, mat, 6, 1, 6, 1, 19), i
 
 
 def test_local_align_batch_empty_and_edge():
@@ -130,8 +129,7 @@ def test_local_align_batch_empty_and_edge():
     mat = ksw.fill_score_matrix(1, 4)
     e = np.zeros(0, np.int64)
     s = np.array([0, 1, 2, 3], np.int64)
-    out = local_align_batch([(e, s), (s, e), (s, s)], mat, 6, 1, 6, 1, 2,
-                            backend="xla")
+    out = local_align_batch([(e, s), (s, e), (s, s)], mat, 6, 1, 6, 1, 2)
     for got, (qi, ti) in zip(out, [(e, s), (s, e), (s, s)]):
         ref = ksw.local_align(qi, ti, mat, 6, 1, 6, 1, 2)
         assert got == ref

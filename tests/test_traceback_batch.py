@@ -1,108 +1,134 @@
-"""Batched C++ traceback walkers vs per-task Python walks."""
+"""Traceback over the XLA global DP's band-packed output: the device walk
+(and its bit-packed single-buffer download) vs the per-task host walk."""
 
 import numpy as np
+import pytest
 
-def test_traceback_batch_parity():
-    from lariat_tpu.align import ksw
-    from lariat_tpu.ops import sw_global_batch
-    MAT = ksw.fill_score_matrix(1, 4)
-    rng = np.random.default_rng(5)
+from lariat_tpu.align import ksw
+from lariat_tpu.ops import sw_global_batch
+
+MAT = np.asarray(ksw.fill_score_matrix(1, 4))
+
+
+def _tasks(rng, n, widths=(10, 25, 100), qmax=110, slack=4):
     tasks = []
-    for _ in range(40):
-        qlen = int(rng.integers(5, 110))
-        ref = rng.integers(0, 4, 200)
-        q = ref[:qlen].copy()
-        for _ in range(int(rng.integers(0, 4))):
-            p = int(rng.integers(0, qlen)); q[p] = (q[p] + rng.integers(1, 4)) % 4
-        t = ref[:qlen + int(rng.integers(-4, 5))].copy()
-        if len(t) < 1: t = ref[:1].copy()
-        w = max(int(rng.choice([10, 25, 100])), abs(len(q) - len(t)))
-        tasks.append((q, t, w))
-    B = len(tasks)
-    Lq = max(len(q) for q, _, _ in tasks); Lt = max(len(t) for _, t, _ in tasks)
-    n_col = max(min(len(q), 2 * w + 1) for q, _, w in tasks)
-    qa = np.zeros((B, Lq), np.int32); ta = np.zeros((B, Lt), np.int32)
-    qlen = np.zeros(B, np.int32); tlen = np.zeros(B, np.int32); wv = np.zeros(B, np.int32)
-    for i, (q, t, w) in enumerate(tasks):
-        qa[i, :len(q)] = q; ta[i, :len(t)] = t
-        qlen[i], tlen[i], wv[i] = len(q), len(t), w
-    res = sw_global_batch.global_batch(qa, qlen, ta, tlen, np.asarray(MAT), wv, n_col)
-    z = np.asarray(res.z); begs = np.asarray(res.beg)
-    got = sw_global_batch.traceback_batch(z, begs, qlen, tlen, wv)
-    for i, (q, t, w) in enumerate(tasks):
-        want = sw_global_batch.traceback(z[i], begs[i], len(q), len(t), w)
-        assert got[i] == want, (i, got[i], want)
-    # pallas interpret path
-    from lariat_tpu.ops import sw_global_pallas
-    res2 = sw_global_pallas.global_batch_pallas(qa, qlen, ta, tlen, np.asarray(MAT),
-                                                wv, interpret=True)
-    z2 = np.asarray(res2.z)
-    got2 = sw_global_pallas.traceback_unpacked_batch(z2, qlen, tlen, wv)
-    for i, (q, t, w) in enumerate(tasks):
-        want2 = sw_global_pallas.traceback_unpacked(z2[i], len(q), len(t), w)
-        assert got2[i] == want2, i
-
-
-def test_pallas_packed_band_matches_unpacked():
-    """Device band packing + packed walker == unpacked walker (interpret)."""
-    from lariat_tpu.align import ksw
-    from lariat_tpu.ops import sw_global_batch, sw_global_pallas
-    MAT = ksw.fill_score_matrix(1, 4)
-    rng = np.random.default_rng(9)
-    B, Lq, Lt = 8, 96, 96
-    qa = rng.integers(0, 4, (B, Lq)).astype(np.int32)
-    ta = qa.copy()
-    for b in range(B):
+    for _ in range(n):
+        ql = int(rng.integers(5, qmax))
+        ref = rng.integers(0, 4, qmax + 2 * slack + 8)
+        q = ref[:ql].copy()
         for _ in range(int(rng.integers(0, 5))):
-            p = int(rng.integers(0, Lq))
-            ta[b, p] = (ta[b, p] + 1) % 4
-    qlen = np.full(B, Lq, np.int32)
-    tlen = np.full(B, Lt, np.int32)
-    wv = rng.integers(8, 30, B).astype(np.int32)
-    res_u = sw_global_pallas.global_batch_pallas(
-        qa, qlen, ta, tlen, np.asarray(MAT), wv, interpret=True, tile_b=8)
-    res_p = sw_global_pallas.global_batch_pallas_packed(
-        qa, qlen, ta, tlen, np.asarray(MAT), wv, interpret=True, tile_b=8)
-    assert np.array_equal(np.asarray(res_u.score), np.asarray(res_p.score))
-    want = sw_global_pallas.traceback_unpacked_batch(
-        np.asarray(res_u.z), qlen, tlen, wv)
-    got = sw_global_batch.traceback_batch(
-        np.asarray(res_p.z), np.asarray(res_p.beg), qlen, tlen, wv)
-    assert got == want
+            p = int(rng.integers(0, ql))
+            q[p] = (q[p] + rng.integers(1, 4)) % 4
+        t = ref[:max(1, ql + int(rng.integers(-slack, slack + 1)))].copy()
+        w = max(int(rng.choice(widths)), abs(len(q) - len(t)))
+        tasks.append((q, t, w))
+    return tasks
 
 
-def test_device_traceback_matches_host_walk():
-    """traceback_ops_device + cigars_from_ops == packed host walker."""
-    from lariat_tpu.align import ksw
-    from lariat_tpu.ops import sw_global_batch, sw_global_pallas
-    MAT = ksw.fill_score_matrix(1, 4)
-    rng = np.random.default_rng(13)
-    B, Lq, Lt = 12, 80, 88
-    qa = rng.integers(0, 4, (B, Lq)).astype(np.int32)
+def _wave(tasks, pad_rows=0):
+    """Run one XLA global wave; returns (res, qlen, tlen, wv, S)."""
+    B = len(tasks) + pad_rows
+    Lq = -(-max(len(q) for q, _, _ in tasks) // 64) * 64
+    Lt = -(-max(len(t) for _, t, _ in tasks) // 64) * 64
+    qa = np.zeros((B, Lq), np.int32)
     ta = np.zeros((B, Lt), np.int32)
     qlen = np.zeros(B, np.int32)
     tlen = np.zeros(B, np.int32)
-    wv = np.zeros(B, np.int32)
-    for b in range(B):
-        ql = int(rng.integers(10, Lq))
-        tl = max(1, ql + int(rng.integers(-4, 5)))
-        ta[b, :tl] = np.resize(qa[b, :ql], tl)
-        for _ in range(int(rng.integers(0, 4))):
-            p = int(rng.integers(0, tl))
-            ta[b, p] = (ta[b, p] + 1) % 4
-        qlen[b], tlen[b] = ql, tl
-        wv[b] = max(int(rng.integers(5, 30)), abs(ql - tl))
-    # pad entry exercising the inactive lane path
-    qlen[-1] = 0
-    tlen[-1] = 0
-    wv[-1] = 1
-    res = sw_global_pallas.global_batch_pallas_packed(
-        qa, qlen, ta, tlen, np.asarray(MAT), wv, interpret=True, tile_b=8)
-    ops_buf, i_fin, k_fin = sw_global_pallas.traceback_ops_device(
-        res.z, qlen, tlen, wv, S=Lq + Lt)
-    got = sw_global_pallas.cigars_from_ops(
+    wv = np.ones(B, np.int32)
+    for i, (q, t, w) in enumerate(tasks):
+        qa[i, :len(q)] = q
+        ta[i, :len(t)] = t
+        qlen[i], tlen[i], wv[i] = len(q), len(t), w
+    n_col = min(Lq, 2 * int(wv.max()) + 1)
+    res = sw_global_batch.global_batch(qa, qlen, ta, tlen, MAT, wv, n_col)
+    return res, qlen, tlen, wv, Lq + Lt
+
+
+def _host_walks(res, tasks):
+    z = np.asarray(res.z)
+    begs = np.asarray(res.beg)
+    return [sw_global_batch.traceback(z[i], begs[i], len(q), len(t), w)
+            for i, (q, t, w) in enumerate(tasks)]
+
+
+def test_traceback_batch_parity():
+    """The device walk of a whole wave == the per-task host walk over the
+    downloaded bytes."""
+    tasks = _tasks(np.random.default_rng(5), 40)
+    res, qlen, tlen, wv, S = _wave(tasks)
+    ops, i_fin, k_fin = sw_global_batch.traceback_ops_device(
+        res.z, qlen, tlen, wv, S=S)
+    dev = sw_global_batch.cigars_from_ops(
+        np.asarray(ops), np.asarray(i_fin), np.asarray(k_fin))
+    for i, want in enumerate(_host_walks(res, tasks)):
+        assert dev[i] == want, (i, dev[i], want)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("width", [5, 20, 100])
+def test_device_walk_equals_host_walk(seed, width):
+    """XLA global DP + device walker == the host walk == ksw.global_align,
+    over seeds and band widths (narrow bands force the band edges)."""
+    rng = np.random.default_rng(1000 * width + seed)
+    tasks = _tasks(rng, 16, widths=(width,), qmax=150, slack=6)
+    res, qlen, tlen, wv, S = _wave(tasks)
+    ops, i_fin, k_fin = sw_global_batch.traceback_ops_device(
+        res.z, qlen, tlen, wv, S=S)
+    dev = sw_global_batch.cigars_from_ops(
+        np.asarray(ops), np.asarray(i_fin), np.asarray(k_fin))
+    host = _host_walks(res, tasks)
+    for i, (q, t, w) in enumerate(tasks):
+        score, cigar = ksw.global_align(q.astype(np.int64),
+                                        t.astype(np.int64), MAT, 6, 1, 6, 1,
+                                        w)
+        assert int(res.score[i]) == score, i
+        assert dev[i] == host[i] == cigar, i
+
+
+def test_device_traceback_matches_host_walk():
+    """traceback_ops_device + cigars_from_ops == the host walk, with a
+    padding row that exercises the inactive-lane path."""
+    tasks = _tasks(np.random.default_rng(13), 11, widths=(5, 12, 29),
+                   qmax=80)
+    res, qlen, tlen, wv, S = _wave(tasks, pad_rows=1)
+    ops_buf, i_fin, k_fin = sw_global_batch.traceback_ops_device(
+        res.z, qlen, tlen, wv, S=S)
+    got = sw_global_batch.cigars_from_ops(
         np.asarray(ops_buf), np.asarray(i_fin), np.asarray(k_fin))
-    want = sw_global_batch.traceback_batch(
-        np.asarray(res.z), np.asarray(res.beg), qlen, tlen, wv)
-    for b in range(B - 1):
+    want = _host_walks(res, tasks)
+    for b in range(len(tasks)):
         assert got[b] == want[b], b
+    # the padding row (qlen = tlen = 0) walks nothing
+    assert (np.asarray(ops_buf)[-1] == 255).all()
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_traceback_ops_fused_packed_matches_raw(seed):
+    """The 4-ops/byte fused download path == the raw uint8 path (and the
+    host reference cigars and scores)."""
+    tasks = _tasks(np.random.default_rng(seed + 170), 10, widths=(10, 25),
+                   qmax=96, slack=6)
+    res, qlen, tlen, wv, S = _wave(tasks)
+    blob = np.asarray(sw_global_batch.traceback_ops_fused(
+        res.z, qlen, tlen, wv, res.score, S=S))
+    assert blob.shape == (len(tasks), S // 4 + 12)
+    packed, score, i_fin, k_fin = sw_global_batch.split_traceback_blob(
+        blob, S)
+    got = sw_global_batch.cigars_from_ops_packed(packed, i_fin, k_fin, S)
+    assert got is not None, "native packed finisher missing"
+    cig_mat, nops = got
+    ops_buf, i2, k2 = sw_global_batch.traceback_ops_device(
+        res.z, qlen, tlen, wv, S=S)
+    raw = sw_global_batch.cigars_from_ops_raw(
+        np.asarray(ops_buf), np.asarray(i2), np.asarray(k2))
+    assert raw is not None
+    cig_raw, nops_raw = raw
+    np.testing.assert_array_equal(nops, nops_raw)
+    for i, (q, t, w) in enumerate(tasks):
+        n = int(nops[i])
+        pairs = list(zip(cig_mat[i, 0:2 * n:2].tolist(),
+                         cig_mat[i, 1:2 * n:2].tolist()))
+        want_score, want_cigar = ksw.global_align(
+            q.astype(np.int64), t.astype(np.int64), MAT, 6, 1, 6, 1, w)
+        assert int(score[i]) == want_score, (seed, i)
+        assert pairs == want_cigar, (seed, i)

@@ -44,7 +44,7 @@ def main() -> None:
     from lariat_tpu.index import native_ops
 
     eng = BatchAlignmentEngine(fm)
-    print(f"backend: {jax.default_backend()}, pallas: {eng.use_pallas}")
+    print(f"backend: {jax.default_backend()}")
 
     seqs = []
     for rec in recs:
@@ -58,7 +58,7 @@ def main() -> None:
     t_seed = time.time() - t0
     print(f"seeding (host C++): {t_seed:.2f}s")
 
-    # first align_batch includes jit/pallas compile (cached across runs)
+    # first align_batch includes the jit compiles (cached across runs)
     t0 = time.time()
     regs = eng.align_batch(seqs)
     t_align = time.time() - t0

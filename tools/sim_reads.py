@@ -11,6 +11,10 @@ go/check.py): parts[5] = read1 truth pos, parts[6] = read2 truth pos
         --barcodes 200 --pairs-per-bc 50
 
 Records are barcode-grouped (the reader's contract) in the 9-line format.
+``--indel-frac`` gives that fraction of read 1s a 1-4 bp deletion or
+insertion (so the reg2aln global DP has gapped work), and
+``--improper-frac`` places that fraction of read 2s on the same strand
+500-1500 bp away (improper pairs, so mate rescue runs).
 """
 
 from __future__ import annotations
@@ -60,6 +64,17 @@ def mutate(rng, seq: bytearray, rate: float) -> None:
         seq[p] = BC_BASES[int(rng.integers(0, 4))]
 
 
+def indel_read(rng, cseq: bytes, pos: int, L: int) -> bytearray:
+    """Read of length L at pos carrying one 1-4 bp deletion or insertion
+    at least 20 bp from either end."""
+    cut = int(rng.integers(20, L - 20))
+    n = int(rng.integers(1, 5))
+    if rng.integers(0, 2):
+        return bytearray(cseq[pos:pos + cut] + cseq[pos + cut + n:pos + L + n])
+    ins = bytes(BC_BASES[int(c)] for c in rng.integers(0, 4, n))
+    return bytearray(cseq[pos:pos + cut] + ins + cseq[pos + cut:pos + L - n])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("fasta")
@@ -72,6 +87,8 @@ def main(argv=None) -> int:
     p.add_argument("--insert", type=int, default=300)
     p.add_argument("--error-rate", type=float, default=0.003)
     p.add_argument("--seed", type=int, default=11)
+    p.add_argument("--indel-frac", type=float, default=0.0)
+    p.add_argument("--improper-frac", type=float, default=0.0)
     args = p.parse_args(argv)
     rng = np.random.default_rng(args.seed)
     contigs = load_fasta(args.fasta)
@@ -98,11 +115,19 @@ def main(argv=None) -> int:
                 for i in range(int(k)):
                     pos = start + int(rng.integers(0, mlen))
                     r1 = bytearray(cseq[pos:pos + L])
+                    if args.indel_frac and rng.random() < args.indel_frac:
+                        r1 = indel_read(rng, cseq, pos, L)
                     p2 = pos + ins - L
+                    improper = (args.improper_frac
+                                and rng.random() < args.improper_frac)
+                    if improper:
+                        p2 = min(pos + int(rng.integers(500, 1500)),
+                                 len(cseq) - L)
                     r2 = bytearray(cseq[p2:p2 + L])
                     mutate(rng, r1, args.error_rate)
                     mutate(rng, r2, args.error_rate)
-                    r2 = bytes(r2).translate(COMP)[::-1]
+                    if not improper:
+                        r2 = bytes(r2).translate(COMP)[::-1]
                     # truth qname: parts[5]=read1 pos, parts[6]=read2 pos
                     qname = f"sim:{bc}:{cname}:{mi}:{i}:{pos}:{p2}"
                     recs.append((qname, bytes(r1), r2))
